@@ -109,6 +109,9 @@ def main() -> int:
         "the 16x16 Cornell tile) crosses the 1e-3 gate near 1M spp",
     )
     args = ap.parse_args()
+    from metalpathtracer_tpu.utils import enable_persistent_compile_cache
+
+    enable_persistent_compile_cache()
     if args.converged:
         res = args.res if args.res != 128 else 16
         return converged(res, args.gate,

@@ -1,12 +1,12 @@
-"""Large-scene stress: the HBM-streaming MXU intersector on the real chip.
+"""Large-scene stress: the production closest-hit route on big scenes.
 
-Validates the production route for scenes far beyond VMEM residency
-(docs/PERFORMANCE.md: the jnp BVH-traversal fallback is gather-bound and
-once crashed the TPU worker; the streaming kernel DMAs only culled weight
-tiles). Renders a random triangle cloud at the given scale and prints
-Mrays/s.
+Renders a random triangle cloud (or a scene preset) at the given scale
+through the wavefront integrator and prints Mrays/s, the BVH's size and
+depth, and whether the image is finite. BVH build and upload are set-up
+time and reported apart.
 
-Usage: python benchmarks/large_scene.py [--tris 1000000] [--spp 2] ...
+Usage: python benchmarks/large_scene.py [--tris 1000000] [--spp 2]
+           [--preset reference_bunny300k] [--intersector auto|bvh] ...
 """
 
 from __future__ import annotations
@@ -16,9 +16,6 @@ import json
 import os
 import sys
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_tpu_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 
 def main() -> int:
@@ -31,24 +28,17 @@ def main() -> int:
     ap.add_argument("--height", type=int, default=512)
     ap.add_argument("--spp", type=int, default=2)
     ap.add_argument("--depth", type=int, default=8)
-    ap.add_argument("--pool", type=int, default=15)  # chip: bunny70k 2^12/14/15 -> 5.67/6.83/6.98 Mrays/s
-    ap.add_argument("--intersector", default="mm", choices=("mm", "bvh"))
+    ap.add_argument("--pool", type=int, default=15, help="log2 pool size")
+    ap.add_argument("--intersector", default="auto", choices=("auto", "bvh"))
     args = ap.parse_args()
 
     import jax
 
-    # the env vars alone do NOT engage the persistent cache on this
-    # backend (verified: entries only appear after explicit config.update)
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.environ["JAX_COMPILATION_CACHE_DIR"],
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-    except Exception:
-        pass
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, repo)
+    from metalpathtracer_tpu.utils import enable_persistent_compile_cache
+
+    enable_persistent_compile_cache()
 
     from metalpathtracer_tpu.render import (
         Camera,
@@ -67,9 +57,8 @@ def main() -> int:
     scene = upload_scene(host)
     print(
         f"scene: {args.tris} tris built+uploaded in "
-        f"{time.perf_counter() - t0:.1f}s; mm_w {scene.mm_w.shape} "
-        f"({scene.mm_w.nbytes / 1e6:.0f} MB), "
-        f"{scene.mm_tile_box.shape[0]} tiles",
+        f"{time.perf_counter() - t0:.1f}s; BVH {scene.node_a.shape[0]} "
+        f"nodes, depth {scene.max_depth}",
         file=sys.stderr,
     )
 
@@ -106,6 +95,7 @@ def main() -> int:
         json.dumps(
             dict(
                 tris=args.tris,
+                device=jax.devices()[0].device_kind,
                 mrays=round(best, 3),
                 intersector=args.intersector,
                 compile_s=round(compile_s, 1),

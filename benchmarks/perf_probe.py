@@ -1,11 +1,13 @@
-"""One timed wavefront render with CLI-selected knobs — the sweep unit.
+"""One timed wavefront render with CLI-selected settings — the sweep unit.
 
-Run under different MPT_* env vars (block sizes bind at import time) and
-compare the printed Mrays/s. End-to-end only: standalone kernel timings lie
-on this backend (docs/PERFORMANCE.md "measurement trap").
+Env knobs of the integrator (MPT_*) bind at import time, so sweep them in
+fresh processes and compare the printed Mrays/s. `--ab-sort` instead
+compares `RenderConfig.sort_lanes` off and on inside one process, in turns
+(off, on, on, off), so both run on the same card.
 
-Usage: python benchmarks/perf_probe.py [--pool LOG2]
-           [--bpi N] [--spp N] [--depth N] [--scene PATH] [--tag STR]
+Usage: python benchmarks/perf_probe.py [--pool LOG2] [--bpi N] [--spp N]
+           [--depth N] [--scene PATH] [--intersector auto|bvh|brute]
+           [--no-sort] [--ab-sort] [--tag STR]
 """
 
 from __future__ import annotations
@@ -16,24 +18,17 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_tpu_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sort", action=argparse.BooleanOptionalAction,
-                    default=True,
-                    help="cfg.sort_lanes pool sorting (DEFAULT ON — the "
-                    "production default; round-3 sweeps measured with the "
-                    "old store_true default silently compared unsorted "
-                    "configs)")
-    ap.add_argument("--sort-key", default="tileset",
-                    choices=("morton", "tileset", "neartile"),
-                    help="pool sort key (default matches the production "
-                    "RenderConfig.sort_key)")
-    ap.add_argument("--pool", type=int, default=12, help="log2 pool size")
-    ap.add_argument("--bpi", type=int, default=2)
+                    default=True, help="cfg.sort_lanes (default on)")
+    ap.add_argument("--ab-sort", action="store_true",
+                    help="time sort_lanes off and on in turns")
+    ap.add_argument("--intersector", default="auto",
+                    choices=("auto", "bvh", "brute"))
+    ap.add_argument("--pool", type=int, default=15, help="log2 pool size")
+    ap.add_argument("--bpi", type=int, default=1)
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--depth", type=int, default=32)
     ap.add_argument("--width", type=int, default=1280)
@@ -43,20 +38,10 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
 
-    import jax
-
-    # the env vars alone do NOT engage the persistent cache on this
-    # backend (verified: entries only appear after explicit config.update)
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.environ["JAX_COMPILATION_CACHE_DIR"],
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-    except Exception:
-        pass
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, repo)
+
+    import jax
 
     from metalpathtracer_tpu.render import (
         Camera,
@@ -65,50 +50,53 @@ def main() -> int:
     )
     from metalpathtracer_tpu.render.integrator import RenderConfig
     from metalpathtracer_tpu.scene import load_scene_xml
+    from metalpathtracer_tpu.utils import enable_persistent_compile_cache
 
+    enable_persistent_compile_cache()
+    dev = jax.devices()[0]
     scene_path = args.scene or os.path.join(repo, "scenes", "reference.xml")
     scene = upload_scene(load_scene_xml(scene_path))
     camera = Camera.reset()
-    cfg = RenderConfig(
-        max_depth=args.depth,
-        bounces_per_iter=args.bpi,
-        sort_lanes=args.sort,
-        sort_key=args.sort_key,
-    )
 
-    kw = dict(spp=args.spp, cfg=cfg, pool_size=1 << args.pool)
-    t0 = time.perf_counter()
-    img, rays = render_image_wavefront(
-        scene, camera, args.width, args.height, seed=0, **kw
-    )
-    jax.block_until_ready(img)
-    compile_s = time.perf_counter() - t0
+    def cfg_for(sort):
+        return RenderConfig(max_depth=args.depth, bounces_per_iter=args.bpi,
+                            sort_lanes=sort, intersector=args.intersector)
 
-    best = 0.0
-    for rep in range(args.reps):
-        t0 = time.perf_counter()
-        img, rays = render_image_wavefront(
-            scene, camera, args.width, args.height, seed=rep + 1, **kw
-        )
-        jax.block_until_ready(img)
-        dt = time.perf_counter() - t0
-        best = max(best, rays / dt / 1e6)
-
-    print(
-        json.dumps(
-            dict(
-                tag=args.tag,
-                mrays=round(best, 3),
-                        pool=args.pool,
-                bpi=args.bpi,
-                mean=float(img.mean()),
-                compile_s=round(compile_s, 1),
-                env={
-                    k: v for k, v in os.environ.items() if k.startswith("MPT_")
-                },
+    def run(cfg):
+        kw = dict(spp=args.spp, cfg=cfg, pool_size=1 << args.pool)
+        best = 0.0
+        for rep in range(args.reps):
+            t0 = time.perf_counter()
+            img, rays = render_image_wavefront(
+                scene, camera, args.width, args.height, seed=rep + 1, **kw
             )
-        )
-    )
+            jax.block_until_ready(img)
+            best = max(best, rays / (time.perf_counter() - t0) / 1e6)
+        return best, float(img.mean())
+
+    order = [False, True, True, False] if args.ab_sort else [args.sort]
+    compile_s = {}
+    for sort in set(order):  # warm up (compile) every variant first
+        t0 = time.perf_counter()
+        run_cfg = cfg_for(sort)
+        img, _ = render_image_wavefront(scene, camera, args.width,
+                                        args.height, seed=0, spp=args.spp,
+                                        cfg=run_cfg,
+                                        pool_size=1 << args.pool)
+        jax.block_until_ready(img)
+        compile_s[sort] = round(time.perf_counter() - t0, 2)
+    rows = []
+    for sort in order:
+        mrays, mean = run(cfg_for(sort))
+        rows.append(dict(sort_lanes=sort, mrays=mrays, mean=mean))
+        print(f"sort_lanes={sort}: {mrays:.3f} Mrays/s", file=sys.stderr)
+    print(json.dumps(dict(
+        tag=args.tag, device=dev.device_kind, intersector=args.intersector,
+        pool=args.pool, bpi=args.bpi, spp=args.spp, depth=args.depth,
+        size=f"{args.width}x{args.height}", scene=os.path.basename(scene_path),
+        first_call_s={str(k): v for k, v in compile_s.items()}, runs=rows,
+        env={k: v for k, v in os.environ.items() if k.startswith("MPT_")},
+    )))
     return 0
 
 

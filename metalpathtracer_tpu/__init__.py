@@ -1,16 +1,18 @@
-"""metalpathtracer_tpu — a TPU-native progressive Monte Carlo path-tracing framework.
+"""metalpathtracer_tpu — a progressive Monte Carlo path-tracing framework in JAX.
 
 A from-scratch rebuild of the capabilities of omkhairate/MetalPathtracer
-(a macOS Metal fragment-shader path tracer) designed TPU-first:
+(a macOS Metal fragment-shader path tracer) as a JAX program that runs on
+NVIDIA GPUs (and on the CPU for tests):
 
 - JAX/XLA wavefront rendering pipeline instead of a per-pixel megakernel
   (reference: `MetalCpp Path Tracer/Renderer/Shaders/Fragment.metal`).
 - Counter-based threefry RNG for reproducible, reshard-invariant sample
   streams (fixes the reference's seed-reuse defects,
   `Renderer/Shaders/Random.h`, `PathTracing.h:27-28`).
-- Linearized SAH BVH traversed inside `jax.lax.while_loop` / Pallas kernels
-  (reference: `Scene/Scene.h:195-317`, `Renderer/Shaders/PathTracing.h:75-204`).
-- Multi-chip tile/sample sharding over a `jax.sharding.Mesh`.
+- Linearized SAH BVH, walked per ray by a CUDA kernel on the GPU and inside
+  `jax.lax.while_loop` elsewhere (reference: `Scene/Scene.h:195-317`,
+  `Renderer/Shaders/PathTracing.h:75-204`).
+- Multi-device tile/sample sharding over a `jax.sharding.Mesh`.
 
 Public API lives in the subpackages:
 

@@ -15,7 +15,7 @@ primitives, and the reference's compact node encoding
   reference re-sorts the index range 3x per node, `Scene.h:283-299`);
 - splits sort by primitive *centroid* rather than `data0[axis]` (the
   reference keys triangles on v0 — centroids give strictly better trees);
-- output is SoA float32/int32 arrays padded for TPU-friendly gathers.
+- output is SoA float32/int32 arrays, gathered per node on the device.
 
 A native C++ builder with the same output contract lives in
 `metalpathtracer_tpu.accel.native` for large scenes.
@@ -86,7 +86,8 @@ def build_bvh(
                 return native.build_bvh_native(lo, hi, leaf_size)
             if backend == "native":
                 raise RuntimeError(
-                    "native BVH builder requested but not built; run `make -C native`"
+                    "native BVH builder requested but not built; run "
+                    "`make -C native cpu`"
                 )
     return build_bvh_from_aabbs(lo, hi, leaf_size)
 

@@ -3,7 +3,7 @@
 Same output contract as the NumPy builder (`accel/bvh.py`); used
 automatically for large scenes where Python-side sweeps get slow. Falls
 back silently to the NumPy builder if the shared library hasn't been built
-(`make -C native`).
+(`make -C native cpu`, into native/build/).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from metalpathtracer_tpu.accel.bvh import BVHArrays, LEAF_SIZE
 
 _LIB_PATHS = [
     os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "native", "libmptbvh.so"),
+        os.path.abspath(__file__)))), "native", "build", "libmptbvh.so"),
     "libmptbvh.so",
 ]
 
@@ -64,7 +64,7 @@ def build_bvh_native(
     lib = _load()
     if lib is None:
         raise RuntimeError(
-            "native BVH builder not built; run `make -C native`"
+            "native BVH builder not built; run `make -C native cpu`"
         )
     n = lo.shape[0]
     if n == 0:

@@ -24,7 +24,8 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="metalpathtracer_tpu",
-        description="TPU-native progressive Monte Carlo path tracer",
+        description="Progressive Monte Carlo path tracer (JAX; CUDA BVH "
+                    "walk on NVIDIA GPUs)",
     )
     p.add_argument("--scene", required=True, help="scene.xml path")
     p.add_argument("--width", type=int, default=1280)  # reference default
@@ -38,10 +39,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--camera-target", default=None, help="x,y,z look-at point")
     p.add_argument("--fov", type=float, default=60.0)
     p.add_argument("--intersector", default="auto",
-                   choices=["auto", "mm", "bvh", "brute"],
-                   help="closest-hit backend (auto = the MXU matmul kernel: "
-                        "VMEM-resident to ~16k tris, HBM-streaming beyond; "
-                        "'bvh' is a study-only jnp traversal, slow on TPU)")
+                   choices=["auto", "bvh", "brute"],
+                   help="closest-hit route (auto = the CUDA BVH walk on a "
+                        "GPU, the plain-JAX traversal elsewhere; 'bvh' "
+                        "forces the plain traversal, 'brute' the "
+                        "exhaustive oracle)")
     p.add_argument("--nee", action="store_true", help="next-event estimation")
     p.add_argument("--rr-start", type=int, default=0,
                    help="first Russian-roulette bounce (0 = off)")
@@ -83,8 +85,8 @@ def main(argv=None) -> int:
 
     from metalpathtracer_tpu.utils import enable_persistent_compile_cache
 
-    # without this a fresh process pays the full remote XLA compile
-    # (~minutes for the wavefront program) on every invocation
+    # without this a fresh process pays the full XLA compile of the
+    # wavefront program on every invocation
     enable_persistent_compile_cache()
 
     from metalpathtracer_tpu.io import save_checkpoint, load_checkpoint, write_png

@@ -7,7 +7,7 @@ invalidation host seed (`Renderer/Shaders/Random.h:6-40`,
 static camera retraces identical paths every frame because the seed lacks
 the frame index.
 
-The TPU-native design is a *counter-based* generator: every random draw is a
+This design is a *counter-based* generator: every random draw is a
 pure function of
 
     (global seed, pixel id, sample index, bounce, purpose)
@@ -17,7 +17,7 @@ the same randoms no matter which chip renders its tile), and checkpoint/
 resume simply continues at the next sample counter. This is the threefry-2x32
 block cipher (Salmon et al., "Parallel random numbers: as easy as 1, 2, 3",
 SC'11) — the same core JAX's PRNG uses — implemented here directly as
-vectorized uint32 VPU ops so we can key/counter it positionally without
+vectorized uint32 ops so we can key/counter it positionally without
 per-lane `fold_in` vmaps.
 """
 

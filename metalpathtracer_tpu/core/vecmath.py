@@ -1,8 +1,8 @@
 """Vectorized 3D math over (..., 3) float32 arrays.
 
-TPU-first convention: geometry is stored SoA/batched as ``(..., 3)`` arrays and
-every op below is shape-polymorphic over leading batch dims, so the whole ray
-wavefront is one dense VPU computation. This replaces the reference's
+Convention: geometry is stored SoA/batched as ``(..., 3)`` arrays and every
+op below is shape-polymorphic over leading batch dims, so the whole ray
+wavefront is one dense vector computation. This replaces the reference's
 per-thread `simd::float3` scalar math (`MetalCpp Path Tracer/Renderer/Shaders/*`,
 metal-cpp `simd` usage throughout `Renderer/Renderer.cpp`).
 """

@@ -1,13 +1,13 @@
-"""Multi-chip rendering: tile and sample sharding over a device mesh.
+"""Multi-device rendering: tile and sample sharding over a device mesh.
 
 The reference is strictly single-GPU — its entire parallelism model is the
 rasterizer launching one fragment thread per pixel (SURVEY.md §2 note, §5
-"Distributed communication backend: none"). The TPU-native scaling axes are:
+"Distributed communication backend: none"). The scaling axes here are:
 
-- **tile sharding**: the pixel grid is split row-block-wise across chips;
-  each chip traces only its tile. Embarrassingly parallel; the framebuffer
-  gather is the only collective (rides ICI).
-- **sample sharding**: every chip renders the full image with a disjoint
+- **tile sharding**: the pixel grid is split row-block-wise across devices;
+  each device traces only its tile. Embarrassingly parallel; the
+  framebuffer gather is the only collective.
+- **sample sharding**: every device renders the full image with a disjoint
   slice of the spp budget; partial sums combine with one `psum`.
 
 Because the RNG streams are positional — a draw depends on (pixel, sample,
@@ -18,12 +18,14 @@ and the two axes compose into a 2-D mesh ("tiles", "samples").
 All sharded entry points jit ONCE per (mesh, shape, config): the compiled
 executables live in `functools.lru_cache`d builders keyed on the static
 parameters, with seed / accumulation state as traced arguments — so
-progressive and interactive multi-chip use pays compilation exactly once.
+progressive and interactive multi-device use pays compilation exactly once.
 
-Scene arrays are a few MB and are replicated per chip; rays never cross
-chips. This is the BASELINE config-5 design (1080p tile-sharded progressive
-accumulation on v5e-8), including checkpointable progressive accumulation
-via `init_accum_sharded` / `accumulate_sharded` (the multi-chip analog of
+Scene arrays are a few MB and are replicated per device; rays never cross
+devices. This is the BASELINE config-5 design (1080p tile-sharded
+progressive accumulation over four GPUs joined all to all by NVLink, so the
+mesh follows the algorithm alone), including checkpointable progressive
+accumulation via `init_accum_sharded` / `accumulate_sharded` (the
+multi-device analog of
 the reference's ping-pong textures, `Renderer.cpp:228-241,269-310`).
 """
 
@@ -44,7 +46,7 @@ from metalpathtracer_tpu.render.pipeline import AccumState, render_tile
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "tiles") -> Mesh:
-    """1-D mesh over local devices (v5e-8 → 8-way tile sharding)."""
+    """1-D mesh over local devices (4 GPUs → 4-way tile sharding)."""
     devices = jax.devices()
     if n_devices is not None:
         devices = devices[:n_devices]
@@ -219,7 +221,7 @@ def render_image_sample_sharded(
     mesh: Mesh | None = None,
 ):
     """Sample-sharded render: chip i traces samples [i*spp/n, (i+1)*spp/n);
-    partial framebuffer sums combine with one psum over ICI."""
+    partial framebuffer sums combine with one psum."""
     if mesh is None:
         mesh = make_mesh(axis="samples")
     n = mesh.devices.size
@@ -275,7 +277,7 @@ def render_image_sample_sharded_wavefront(
     integrator): chip i traces samples [i*spp/n, (i+1)*spp/n) of EVERY
     pixel via its own wavefront pool (sample_offset keeps the positional
     RNG streams global), and partial framebuffer sums combine with one
-    psum over ICI. Bit-identical to the single-device wavefront."""
+    psum. Bit-identical to the single-device wavefront."""
     if mesh is None:
         mesh = make_mesh(axis="samples")
     n = mesh.devices.size

@@ -13,8 +13,8 @@ Lambertian at `PathTracing.h:251-255`, SURVEY.md appendix 5). Conventions
 - material_type == 2: emissive marker — scatters Lambertian like the
   reference's `rayColor` (`PathTracing.h:245-249`)
 
-All lanes evaluate all lobes and select — there is no per-lane branching on
-TPU, and the select is cheap next to the intersection work.
+All lanes evaluate all lobes and select — the wavefront has no per-lane
+branching, and the select is cheap next to the intersection work.
 """
 
 from __future__ import annotations

@@ -1,23 +1,22 @@
 """DeviceScene: the packed scene + BVH as a JAX pytree of device arrays.
 
-This is the TPU equivalent of the reference's GPU buffer set — the seven
+This is the JAX equivalent of the reference's GPU buffer set — the seven
 fragment-shader bindings built in `Renderer::buildBuffers` /
 `updateVisibleScene` (`MetalCpp Path Tracer/Renderer/Renderer.cpp:114-149,
 184-223`): primitives, materials, BVH nodes, and the primitive index
 permutation. Scene buffers are small (a few MB even at bunny scale) so under
-multi-chip sharding they are fully replicated per chip (SURVEY.md §5).
+multi-device sharding they are fully replicated per device (SURVEY.md §5).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import jax
 import numpy as np
 
 from metalpathtracer_tpu.accel.bvh import BVHArrays, build_bvh
-from metalpathtracer_tpu.scene.types import HostScene, PackedScene
+from metalpathtracer_tpu.scene.types import PRIM_TRIANGLE, HostScene, PackedScene
 
 
 @jax.tree_util.register_dataclass
@@ -40,24 +39,6 @@ class DeviceScene:
     node_a: jax.Array  # int32 (M,)
     node_b: jax.Array  # int32 (M,)
     prim_indices: jax.Array  # int32 (P,)
-    # MXU triangle-intersection weights (render/pallas/intersect_mm.py):
-    # tile-interleaved [wa|wu|wv|wt] blocks, one matmul per tile
-    mm_w: jax.Array  # weight slab (n_tiles, W_ROWS, 4*TILE_P): one
-    #                  contiguous DMA-able block per tile; bf16 W_ROWS=64 in
-    #                  "pack" precision mode (pre-split hi/lo), f32 16 rows
-    #                  otherwise
-    mm_tri_ids: jax.Array  # int32 (Tmm,) column -> original primitive index
-    mm_refine: jax.Array  # float32 (Tmm, 8) [n, n.v0, prim, mat] rows
-    mm_tile_box: jax.Array  # float32 (n_tiles, 8) per-tile AABB [lo3,_,hi3,_]
-    # (N_COARSE, 8) coarse AABBs over contiguous tile-id ranges: the
-    # wavefront's tile-set-signature sort key (one bit per coarse box;
-    # two u32 sort words when more than 32 boxes — integrator.maybe_sort)
-    mm_coarse_box: jax.Array
-    # sphere SoA for the exact sphere pass
-    sph_center: jax.Array  # float32 (S, 3)
-    sph_radius: jax.Array  # float32 (S,)
-    sph_ids: jax.Array  # int32 (S,)
-    sph_mat_id: jax.Array  # int32 (S,) material-bank id per sphere
     # packed per-primitive tables: ONE gather per bounce instead of many.
     # geom: [p0(3), p1(3), p2(3), prim_type, 0, 0, 0, 0, 0, 0, 0]
     # mat:  [albedo(3), material_type, emission(3), power, fuzz, 0, ...]
@@ -65,8 +46,8 @@ class DeviceScene:
     mat_table: jax.Array  # float32 (P, 16)
     # material-bank indirection: scenes have few DISTINCT materials (one per
     # mesh/sphere), so the per-bounce material fetch becomes a 4-byte id
-    # gather + a one-hot (N, M) @ (M, 16) matmul on the MXU instead of a
-    # 64-byte row gather.
+    # gather + a one-hot (N, M) @ (M, 16) product instead of a 64-byte row
+    # gather.
     prim_mat_id: jax.Array  # int32 (P,)
     mat_bank: jax.Array  # float32 (M, 16), M padded to 8
     # light table for next-event estimation + MIS (integrator._sample_light):
@@ -91,53 +72,10 @@ class DeviceScene:
     num_lights: int = dataclasses.field(metadata=dict(static=True))
 
 
-# coarse signature ranges for the pool sort key. The VERDICT-r4-#9
-# saturation hypothesis (32 boxes pack ~39 tiles/box on bunny300k, so
-# distinct fine tile sets collide) was TESTED on chip and the finer key
-# LOSES everywhere: at 64 boxes (two u32 sort words past 32 — see
-# integrator.maybe_sort) flagship 32.0 vs 33.1, bunny70k 6.63 vs 7.86,
-# bunny300k 5.47 vs 5.55 Mrays/s (same-session A/B, round 5). The key
-# was not saturated in a way that matters — subgroup unions are bounded
-# by spatial incoherence, not key collisions, and the extra slab tests +
-# two-word sort cost real time. 32 stays the default; the generalized
-# >32-box machinery remains env-switchable for future sweeps.
-N_COARSE = int(os.environ.get("MPT_COARSE_BOXES", "32"))
-
-
-def _coarse_boxes(tile_box: np.ndarray, n_coarse: int = None) -> np.ndarray:
-    """Merge the per-tile AABBs into <=n_coarse coarse boxes over
-    CONTIGUOUS tile id ranges (tiles are kd/Morton-ordered, so ranges are
-    spatially compact). One slab test per coarse box gives each ray a
-    tile-set signature — the wavefront pool's sort key (integrator
-    sort_lanes): lanes that will need the same tiles become pool
-    neighbors, which is what makes the per-128-lane subgroup culling bite
-    for bounced rays. Empty/padding slots get never-hit boxes
-    (lo=+inf, hi=-inf)."""
-    if n_coarse is None:
-        n_coarse = N_COARSE
-    nt = tile_box.shape[0]
-    # never more boxes than tiles: a one-tile scene needs one bit, and the
-    # signature words stay cheap on tiny scenes
-    n_coarse = max(1, min(n_coarse, nt))
-    out = np.zeros((n_coarse, 8), np.float32)
-    out[:, 0:3] = np.inf
-    out[:, 4:7] = -np.inf
-    group = max(1, -(-nt // n_coarse))
-    for c in range(min(n_coarse, -(-nt // group))):
-        a, b = c * group, min((c + 1) * group, nt)
-        if a >= nt:
-            break
-        out[c, 0:3] = tile_box[a:b, 0:3].min(axis=0)
-        out[c, 4:7] = tile_box[a:b, 4:7].max(axis=0)
-    return out
-
-
 def _build_light_table(packed: PackedScene) -> dict:
     """Host-side light table over every emissive primitive. Pick weights are
     proportional to radiant flux (max emission channel x power x area), so a
     dim candle is rarely sampled next to a bright panel."""
-    from metalpathtracer_tpu.scene.types import PRIM_TRIANGLE
-
     p = packed.num_padded
     real = np.arange(p) < packed.num_real
     brightness = packed.emission_power * packed.emission_color.max(axis=-1)
@@ -220,10 +158,6 @@ def upload_scene(
     prim_indices = np.zeros(p, np.int32)
     prim_indices[: bvh.prim_indices.shape[0]] = bvh.prim_indices
 
-    from metalpathtracer_tpu.render.pallas.intersect_mm import build_weights
-
-    w = build_weights(packed.prim_type, packed.p0, packed.p1, packed.p2)
-
     geom = np.zeros((p, 16), np.float32)
     geom[:, 0:3] = packed.p0
     geom[:, 3:6] = packed.p1
@@ -245,15 +179,6 @@ def upload_scene(
     ).astype(np.float32)
     prim_mat_id = prim_mat_id.astype(np.int32)
 
-    # material ids ride inside the intersection row tables so the bounce
-    # pays zero id gathers (intersect_mm row col 5; sphere SoA)
-    refine = w["tri_refine"]
-    tri_real = w["tri_ids"] >= 0
-    refine[tri_real, 5] = prim_mat_id[w["tri_ids"][tri_real]]
-    sph_real = w["sph_ids"] >= 0
-    sph_mat_id = np.zeros(w["sph_ids"].shape[0], np.int32)
-    sph_mat_id[sph_real] = prim_mat_id[w["sph_ids"][sph_real]]
-
     return DeviceScene(
         prim_type=jax.numpy.asarray(packed.prim_type),
         p0=jax.numpy.asarray(packed.p0),
@@ -269,18 +194,9 @@ def upload_scene(
         node_a=jax.numpy.asarray(bvh.node_a),
         node_b=jax.numpy.asarray(bvh.node_b),
         prim_indices=jax.numpy.asarray(prim_indices),
-        mm_w=jax.numpy.asarray(w["w_all"]),
-        mm_tri_ids=jax.numpy.asarray(w["tri_ids"]),
-        mm_refine=jax.numpy.asarray(w["tri_refine"]),
-        mm_tile_box=jax.numpy.asarray(w["tile_box"]),
-        mm_coarse_box=jax.numpy.asarray(_coarse_boxes(w["tile_box"])),
-        sph_center=jax.numpy.asarray(w["sph_center"]),
-        sph_radius=jax.numpy.asarray(w["sph_radius"]),
-        sph_ids=jax.numpy.asarray(w["sph_ids"]),
-        sph_mat_id=jax.numpy.asarray(sph_mat_id),
         geom_table=jax.numpy.asarray(geom),
         mat_table=jax.numpy.asarray(mat),
-        prim_mat_id=jax.numpy.asarray(prim_mat_id.astype(np.int32)),
+        prim_mat_id=jax.numpy.asarray(prim_mat_id),
         mat_bank=jax.numpy.asarray(mat_bank),
         light_kind=jax.numpy.asarray(lights["kind"]),
         light_prim=jax.numpy.asarray(lights["prim"]),
@@ -295,6 +211,6 @@ def upload_scene(
         prim_light_id=jax.numpy.asarray(lights["prim_light_id"]),
         num_real=int(packed.num_real),
         max_depth=int(bvh.max_depth),
-        num_tris=int(w["n_tris"]),
+        num_tris=int(np.sum(packed.prim_type == PRIM_TRIANGLE)),
         num_lights=int(lights["n"]),
     )

@@ -41,10 +41,9 @@ from metalpathtracer_tpu.render.traverse import closest_hit_bvh
 
 # Sweep knobs, read ONCE at import (ADVICE r3): trace_wavefront is traced
 # under the caller's jit whose cache keys on shapes/cfg only, so a mid-
-# process env toggle would silently reuse the previously traced program
-# (the same sweep trap as perf_probe's old --sort default). Import-time
-# reads make the process-wide value explicit; sweeps must use fresh
-# processes (as benchmarks/perf_probe.py does).
+# process env toggle would silently reuse the previously traced program.
+# Import-time reads make the process-wide value explicit; sweeps must use
+# fresh processes.
 _ENV_BANK_K = int(os.environ.get("MPT_BANK_K", "8"))
 _ENV_BANK_K_EXPLICIT = "MPT_BANK_K" in os.environ
 _ENV_SORT_EVERY = int(os.environ.get("MPT_SORT_EVERY", "4"))
@@ -53,11 +52,9 @@ _ENV_DRAIN_SORT = os.environ.get("MPT_DRAIN_SORT", "")
 # the (pend-first) sorted pool, falling back to the full-pool scatter via
 # a scalar lax.cond when more lanes hold pending banks than the prefix
 # holds (short-path scenes: every lane banks every window). 0 disables.
-# The fb scatter costs ~40-85 ns per ROW regardless of masking (CLAUDE.md,
-# benchmarks/scatter_probe.py) and ~85% of scattered rows are dummies at
-# steady state (a lane banks once per per_item advances ~ 1 per window),
-# so compacting real banks into a prefix is worth ~19% -> ~5% of device
-# time on the flagship profile (docs/PERFORMANCE.md round 4).
+# Most scattered rows carry no bank at steady state (a lane banks about
+# once per window), so a prefix covers the real ones. It exists for an
+# accelerator whose scatter cost per row; not re-measured on the GPU.
 _ENV_SCATTER_CAP_DIV = int(os.environ.get("MPT_SCATTER_CAP_DIV", "4"))
 
 # static routing of the most recent trace_wavefront TRACE (see the
@@ -72,29 +69,19 @@ class RenderConfig:
     (`PathTracing.h:216`, `Scene.h:223`, SURVEY.md §5 config note)."""
 
     max_depth: int = 32  # reference maxRayDepth (PathTracing.h:216)
-    # intersector: "auto" picks the MXU matmul kernel for scenes that fit
-    # VMEM and BVH traversal beyond; "bvh" / "mm" / "brute" force a path.
+    # closest-hit route: "auto" resolves by backend (resolve_intersector):
+    # the CUDA BVH walk on a GPU, the plain-JAX BVH traversal elsewhere.
+    # "bvh" forces the plain traversal, "brute" the exhaustive oracle.
     intersector: str = "auto"
     brute_chunk: int = 128
-    # wavefront lane sorting: reorder the pool by origin Morton cell each
-    # feed-loop body so the per-CULL_R-subgroup tile lists see coherent
-    # lanes (bounced subgroups otherwise pass every tile — the cull
-    # diagnostic in docs/PERFORMANCE.md). The permutation rides through two
-    # packed matrices (2 row-gathers); measured +9% on the bunny bench
-    # (11.4 -> 12.4 Mrays/s). Round 1's per-array permute version was a
-    # big loss — the packed rewrite plus subgroup culling flipped the sign.
-    # Ignored for triangle-free scenes (nothing to cull). Positional RNG
-    # makes the estimate invariant to any lane permutation.
-    sort_lanes: bool = True
-    # pool sort key. "tileset" (default) = 32-bit coarse tile-set
-    # signature (one slab-test bit per merged tile-range AABB — grouping
-    # lanes by the tiles they will actually demand); "neartile" =
-    # nearest-passing-fine-tile id major + Morton minor; "morton" =
-    # round-2's origin-Morton + direction octant proxy. Swept on chip at
-    # the production CULL_R 256 / U4 kernel: tileset 21.6, neartile 21.5,
-    # morton 21.2 Mrays/s. (An earlier "tileset loses" reading was the
-    # perf_probe unsorted-default artifact — see CLAUDE.md.)
-    sort_key: str = "tileset"
+    # wavefront lane sorting: reorder the pool by origin Morton cell and
+    # direction octant every sort_every advances, so neighbouring lanes
+    # walk similar BVH paths. The permutation rides through two packed
+    # matrices (2 row-gathers). Ignored for triangle-free scenes.
+    # Positional RNG makes the estimate invariant to any lane permutation.
+    # Off by default: with the CUDA walk the sort costs more than the
+    # coherence it buys (flagship on an H100, PERF.md).
+    sort_lanes: bool = False
     clamp_radiance: bool = False  # reference's per-sample [0,1] clamp
     rr_start: int = 0  # 0 = off; else first bounce eligible for roulette
     # next-event estimation: one flux-weighted light sample per diffuse
@@ -116,27 +103,13 @@ class RenderConfig:
     # wavefront pixel-group banking width: one work item covers `bank_k`
     # ADJACENT pixels x spp samples, the lane accumulator widens to
     # (pool, 3*bank_k) and the framebuffer scatter writes (n_pix/bank_k,
-    # 3*bank_k) rows. The fb scatter-add costs ~40-52 ns per pool ROW per
-    # call regardless of payload width or masked drops (benchmarks/
-    # scatter_probe.py; the sort-compaction endgame measured WORSE — the
-    # final 1M-row argsort alone costs more than every scatter combined),
-    # so banking K pixels per row divides the scatter-call count by K.
-    # 0 = auto (largest k <= MPT_BANK_K [default 8] dividing n_pix with the
-    # pool kept busy); 1 = the round-2 per-pixel banking. Chip sweep
-    # (bench, 720p spp4, pool 2^14): K=1 22.54, K=4 23.47, K=8 23.96
-    # Mrays/s. NOTE (ADVICE r3): at the shipped pool 2^15 the queue-depth
-    # guard caps auto at K=4 for 720p (n_pix//8 * chunks < 4*pool) — the
-    # K=8 number was measured at the smaller pool; K=8 at pool 2^15
-    # re-measured 30.0 vs 32.8 for auto(4), so the guard's pick stands.
+    # 3*bank_k) rows. Where a scatter costs per row whatever its width or
+    # masking (benchmarks/scatter_probe.py measures it), banking K pixels
+    # per row divides the scatter's rows by K. 0 = auto (largest
+    # k <= MPT_BANK_K [default 8] dividing n_pix with the pool kept busy);
+    # 1 = per-pixel banking. Banking exists for an accelerator whose
+    # scatter cost per row; not re-measured on the GPU.
     bank_k: int = 0
-    # NOTE: a fused-advance Pallas megakernel (the whole non-NEE bounce in
-    # ONE kernel — the reference's one-dispatch frame, Renderer.cpp:269-310)
-    # was built in round 4 and DELETED in round 5 per VERDICT r4 #4's
-    # win-or-cut: after three optimization passes it still measured 26.7 vs
-    # 29.7 Mrays/s against the split path (the fused extract+shade phases
-    # cost more than the XLA ops they deleted), and its eligibility
-    # excluded NEE/streaming/non-pack configs. History: git 40b36c4..,
-    # docs/PERFORMANCE.md round 4.
 
 
 DEFAULT_CONFIG = RenderConfig()
@@ -147,56 +120,60 @@ REFERENCE_CONFIG = RenderConfig(
 )
 
 
-def _trace_rays(scene, o, d, cfg, active=None, occ_t=None):
-    """Closest hit + surface frame: (t, idx, normal, front_face, mat_id,
-    tile_passes). mat_id is the winner's material-bank id when the
-    intersector provides it fused (the mm path does — zero extra gathers),
-    else None; tile_passes counts the MXU (block, tile) passes this call
-    ran (MFU telemetry, 0 on non-mm paths).
+INTERSECTORS = ("auto", "bvh", "brute")
 
-    "auto" ALWAYS routes to the MXU matmul intersector: weights stay
-    VMEM-resident to ~16k tris and stream culled tiles from HBM beyond
-    (TPU-validated at the million-triangle scale, benchmarks/large_scene.py).
-    The jnp lockstep BVH traversal stays available via intersector="bvh"
-    for study, but it is gather-bound on this backend (77x slower than
-    streaming mm at 100k tris) and has crashed the TPU worker at scale
-    (CLAUDE.md) — "auto" never selects it (ADVICE r2 / VERDICT r2 weak #6)."""
-    kind = cfg.intersector
-    if kind == "auto":
-        kind = "mm"
-    if kind == "mm":
-        from metalpathtracer_tpu.render.pallas.intersect_mm import (
-            closest_hit_mm_full,
+
+def resolve_intersector(kind: str, platform: str) -> str:
+    """The closest-hit route `kind` takes on backend `platform`
+    (`jax.default_backend()`): "auto" is the CUDA BVH walk on "gpu" and
+    the plain-JAX traversal everywhere else."""
+    if kind not in INTERSECTORS:
+        raise ValueError(
+            f"unknown intersector {kind!r}; expected one of {INTERSECTORS}"
         )
+    if kind == "auto":
+        return "cuda" if platform == "gpu" else "bvh"
+    return kind
 
-        return closest_hit_mm_full(scene, o, d, T_MIN, active=active,
-                                   occ_t=occ_t)
+
+def closest_hit(scene, o, d, intersector="auto", active=None, t_max=None,
+                brute_chunk=128):
+    """(t, idx) of the closest hit on the route `intersector` resolves to
+    on the default backend. `active` masks rays out and `t_max` bounds the
+    hit distance (an occlusion query); the brute-force oracle ignores
+    both, which only costs it work: the integrator masks results by
+    `active`, and a shadow ray's verdict compares the hit id with the
+    light's."""
+    kind = resolve_intersector(intersector, jax.default_backend())
+    if kind == "cuda":
+        from metalpathtracer_tpu.render import hit_cuda
+
+        hit_cuda.load_library()
+        return hit_cuda.closest_hit_cuda(scene, o, d, T_MIN, active, t_max)
     if kind == "bvh":
-        t, idx = closest_hit_bvh(scene, o, d, T_MIN)
-    elif kind == "brute":
-        t, idx = closest_hit_bruteforce(scene, o, d, T_MIN, chunk=cfg.brute_chunk)
-    else:
-        raise ValueError(f"unknown intersector {cfg.intersector!r}")
+        return closest_hit_bvh(scene, o, d, T_MIN, active, t_max)
+    return closest_hit_bruteforce(scene, o, d, T_MIN, chunk=brute_chunk)
+
+
+def _trace_rays(scene, o, d, cfg, active=None, occ_t=None):
+    """Closest hit + surface frame: (t, idx, normal, front_face)."""
+    t, idx = closest_hit(scene, o, d, cfg.intersector, active, occ_t,
+                         cfg.brute_chunk)
     geom_row = scene.geom_table[jnp.maximum(idx, 0)]
     _, normal, front_face = surface_interaction_packed(geom_row, o, d, t)
-    return t, idx, normal, front_face, None, jnp.zeros((), jnp.float32)
+    return t, idx, normal, front_face
 
 
-def _fetch_material(scene, idx, mat_id=None):
-    """Per-hit material row. With a small material bank this is a one-hot
-    (N, M) @ (M, 16) on the MXU fed by the intersector's fused mat_id (or a
-    4-byte id gather when the intersector didn't provide one); the direct
-    64-byte row gather is the fallback for exotic scenes with >128 distinct
-    materials."""
+def _fetch_material(scene, idx):
+    """Per-hit material row. With a small material bank this is a 4-byte
+    id gather and a one-hot (N, M) @ (M, 16) product; the direct 64-byte
+    row gather is the fallback for scenes with >128 distinct materials."""
     m = scene.mat_bank.shape[0]
     if m <= 128:
-        mid = (
-            mat_id if mat_id is not None
-            else scene.prim_mat_id[jnp.maximum(idx, 0)]
-        )
+        mid = scene.prim_mat_id[jnp.maximum(idx, 0)]
         onehot = (mid[:, None] == jnp.arange(m, dtype=jnp.int32)[None, :])
-        # HIGHEST: the default TPU f32 matmul truncates operands to bf16,
-        # i.e. it would hand back bf16-rounded material constants
+        # HIGHEST: a default-precision f32 product may round its operands
+        # (TF32 on the GPU) and hand back rounded material constants
         return jnp.dot(
             onehot.astype(jnp.float32), scene.mat_bank,
             preferred_element_type=jnp.float32,
@@ -322,15 +299,15 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
     counterweight that lets the light-sample and BSDF routes both count
     every emitter without double-counting. Returns
     (o, d, light, throughput, still_active, prev_pdf, rays_counted,
-    shadow_counted, tile_passes). rays_counted INCLUDES the NEE shadow
+    shadow_counted). rays_counted INCLUDES the NEE shadow
     rays; shadow_counted reports them separately so metrics can label
     occlusion probes apart from full path rays (VERDICT r3 weak #8 —
-    shadow rays are cheap tile-pruned queries, not flagship-equivalent
+    shadow rays are distance-bounded queries, not flagship-equivalent
     work)."""
     rays_counted = jnp.sum(active, dtype=jnp.int32)
     shadow_counted = jnp.zeros((), jnp.int32)
 
-    t, idx, normal, front_face, mat_id, tile_passes = _trace_rays(
+    t, idx, normal, front_face = _trace_rays(
         scene, o, d, cfg, active=active
     )
     miss = idx < 0
@@ -341,7 +318,7 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
 
     hit_live = active & ~miss
     point = o + t[:, None] * d
-    mat_row = _fetch_material(scene, idx, mat_id)
+    mat_row = _fetch_material(scene, idx)
     albedo = mat_row[:, 0:3]
     mat_type = mat_row[:, 3]
     emission = mat_row[:, 4:7]
@@ -408,12 +385,11 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
         )
         s_o = point + (1e-3) * normal
         # shadow query: hits beyond the light distance are irrelevant, so
-        # the kernel prunes tiles past it (any-hit-style early out; the
-        # 1.001 slack keeps the light's own tile unpruned at the boundary)
-        st, sidx, _, _, _, s_passes = _trace_rays(
+        # the walk prunes past it (the 1.001 slack keeps the light's own
+        # surface inside the bound)
+        st, sidx, _, _ = _trace_rays(
             scene, s_o, ldir, cfg, active=cand, occ_t=ldist * 1.001
         )
-        tile_passes = tile_passes + s_passes
         shadow_counted = jnp.sum(cand, dtype=jnp.int32)
         rays_counted = rays_counted + shadow_counted
         lit = cand & (sidx == lprim)
@@ -467,7 +443,7 @@ def _bounce_step(scene, o, d, light, throughput, active, prev_pdf,
     throughput = jnp.where(hit_live[:, None], new_tp, throughput)
     prev_pdf = jnp.where(hit_live, new_pdf, prev_pdf)
     return (o, d, light, throughput, hit_live, prev_pdf, rays_counted,
-            shadow_counted, tile_passes)
+            shadow_counted)
 
 
 def trace(scene, o, d, pixel_id, sample_id, seed, cfg: RenderConfig = DEFAULT_CONFIG):
@@ -499,7 +475,7 @@ def trace(scene, o, d, pixel_id, sample_id, seed, cfg: RenderConfig = DEFAULT_CO
 
     def body(state):
         bounce, o, d, light, throughput, active, prev_pdf, rays_traced = state
-        o, d, light, throughput, active, prev_pdf, counted, _, _ = _bounce_step(
+        o, d, light, throughput, active, prev_pdf, counted, _ = _bounce_step(
             scene, o, d, light, throughput, active, prev_pdf,
             pixel_id, sample_id, bounce, seed, cfg,
         )
@@ -554,7 +530,8 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
             "chunks via render_image/sample_offset instead"
         )
     if pool_size is None:
-        pool_size = min(n_pix * spp, 1 << 15)  # 2^15 swept optimal (chip: 2^14/15/16 -> 30.1/32.1/27.0 Mrays/s at bpi 1)
+        # 2^15 was chosen for an earlier accelerator; not re-tuned
+        pool_size = min(n_pix * spp, 1 << 15)
     pool = int(pool_size)
 
     # samples-per-bank: when the image carries enough parallelism, one lane
@@ -562,10 +539,8 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
     # group of adjacent pixels) before banking, so the framebuffer
     # scatter-add runs once per pixel GROUP, not once per sample — and its
     # indices are structurally unique, unlocking XLA's parallel scatter
-    # path. (The fb scatter measured 176 ms/render = 23% of device time as
-    # a colliding-add over every lane every iteration; per-pixel banking
-    # cut it to 15%, K=4 grouping to ~a quarter of that.) Small images fall
-    # back to per-sample items to keep the pool busy.
+    # path. Small images fall back to per-sample items to keep the pool
+    # busy.
     spb = spp if n_pix >= pool else 1
     chunks = spp // spb
     # pixel-group banking (see RenderConfig.bank_k): one work item =
@@ -596,12 +571,6 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
     # capped fb scatter (see _ENV_SCATTER_CAP_DIV): sound only when every
     # feed window ends with a pend-first sort, i.e. when lane sorting is
     # on at all — unsorted pools leave real banks anywhere in the pool.
-    # (A completion-wave STAGGER — splitting first-generation items so the
-    # cap's narrow branch fires every window, VERDICT r4 #3 — was built
-    # and measured DEAD this round: the extra bank/regen cycles of the
-    # split items cost 32.7 -> 28.7 Mrays/s on the flagship, far more than
-    # the scatter rows it saved. Removed per the directive's own
-    # win-or-remove criterion; docs/PERFORMANCE.md round 5.)
     scatter_cap = 0
     if (_ENV_SCATTER_CAP_DIV > 0 and cfg.sort_lanes
             and scene.num_tris > 0 and pool >= 4 * _ENV_SCATTER_CAP_DIV):
@@ -659,16 +628,11 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
         # `groups` fb rows; lanes with no pending bank carry the UNIQUE
         # out-of-bounds index `groups + lane` and scatter in mode="drop":
         # indices stay pairwise distinct (no duplicate-under-unique_indices
-        # UB — the round-2/3 formulation shared ONE OOB index, VERDICT r3
-        # weak #4), while dropped rows never reach the write stage. The
-        # round-4 in-bounds per-lane DUMMY-row variant was NOT cost-free:
-        # really writing `pool` dummy rows per window measured 32.6 -> 28.6
-        # Mrays/s on chip (round-5 regression bisect, docs/PERFORMANCE.md).
+        # UB), while dropped rows never reach the write stage.
         fb=jnp.zeros((groups, 3 * bank_k), jnp.float32),
         next_item=jnp.uint32(min(pool, total)),
         rays=jnp.zeros((), jnp.int32),
         shadow=jnp.zeros((), jnp.int32),
-        mxu_tile_passes=jnp.zeros((), jnp.float32),
         # pending-bank slots (scattered once per flush window); a lane
         # banks at most once per window (banks are >= per_item advances
         # apart, see the flush_every note below), so a slot is always free
@@ -677,19 +641,14 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
         pend_rgb=jnp.zeros((pool, 3 * bank_k), jnp.float32),
     )
 
-    # The fb scatter-add costs ~52 ns per pool ROW per call on this backend
-    # no matter how many rows are masked out (drop-mode rows are not free —
-    # measured 162 ms/render, 23% of device time, even after banking went
-    # per-pixel). Banks are provably rare: a lane banks only after spb
-    # path completions, and `advance` can complete AT MOST ONE path per
-    # call (path_done fires once, whatever bounces_per_iter is) — so banks
-    # are >= spb advances apart. The loop body therefore unrolls
-    # `flush_every` advances, collects their banks in local pending slots
-    # (each lane banks at most once per body by the bound above), and runs
-    # ONE scatter per body. (A lax.cond-gated flush measured slower — the
-    # conditional breaks fusion around the framebuffer.) Round 2 divided
-    # the bound by bounces_per_iter — overly conservative by exactly that
-    # factor (the bank cadence is per ADVANCE, not per bounce). With
+    # A scatter-add may cost per pool ROW no matter how many rows are
+    # masked out. Banks are provably rare: a lane
+    # banks only after spb path completions, and `advance` can complete AT
+    # MOST ONE path per call (path_done fires once, whatever
+    # bounces_per_iter is) — so banks are >= spb advances apart. The loop
+    # body therefore runs `flush_every` advances, collects their banks in
+    # local pending slots (each lane banks at most once per body by the
+    # bound above), and runs ONE scatter per body. With
     # pixel-group banking the cadence stretches to per_item advances, so
     # the flush window covers the whole item; the lane sort keeps its own
     # finer cadence (sort_every) INSIDE the window, with the pending-bank
@@ -711,19 +670,17 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
         still = alive
         counted = jnp.zeros((), jnp.int32)
         shadow = jnp.zeros((), jnp.int32)
-        passes = jnp.zeros((), jnp.float32)
         # multiple bounces per iteration amortize the regen machinery
         # (cumsum, scatter-add, raygen, ~20 masked updates) whose fixed op
         # cost dominates when the pool is small
         for k in range(max(1, cfg.bounces_per_iter)):
             step_active = still & (bounce + k < cfg.max_depth)
-            o, d, light, tp, still, prev_pdf, c, sh, tpass = _bounce_step(
+            o, d, light, tp, still, prev_pdf, c, sh = _bounce_step(
                 scene, o, d, light, tp, step_active, prev_pdf,
                 pixel, sample, bounce + k, seed, cfg,
             )
             counted = counted + c
             shadow = shadow + sh
-            passes = passes + tpass
         bounce_next = bounce + max(1, cfg.bounces_per_iter)
         survivors = still & (bounce_next < cfg.max_depth)
         path_done = alive & ~survivors
@@ -732,8 +689,7 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
         # per-sample [0,1] clamp applies here, PathTracing.h:258). With
         # pixel-group banking the accumulator holds bank_k pixel slots and
         # the completion lands in slot schunk // spb (a K-wide one-hot
-        # masked add — a handful of VPU ops, vs the ~40 ns/row a
-        # per-completion scatter would cost).
+        # masked add instead of a per-completion scatter).
         ps = jnp.clip(light, 0.0, 1.0) if cfg.clamp_radiance else light
         if bank_k == 1:
             acc = st["acc"] + jnp.where(path_done[:, None], ps, 0.0)
@@ -761,7 +717,6 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
             alive=survivors,
             rays=st["rays"] + counted,
             shadow=st["shadow"] + shadow,
-            mxu_tile_passes=st["mxu_tile_passes"] + passes,
         )
         return st, path_done, more, bank
 
@@ -779,13 +734,10 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
         )
 
     def maybe_sort(st, pend_idx=None, pend_rgb=None, pend_first=True):
-        # origin-locality sort: tile lists are per CULL_R-lane subgroup,
-        # so grouping lanes by origin Morton cell makes BOUNCED
-        # subgroups cull like coherent primaries (the per-block-ANY
-        # union covers everything otherwise — docs/PERFORMANCE.md cull
-        # diagnostic). The permutation rides through two packed
-        # matrices — 2 wide row-gathers instead of 11 per-array gathers
-        # (the round-1 version whose cost killed the idea).
+        # origin-locality sort: lanes whose origins share a Morton cell
+        # (and whose directions share an octant) become neighbours. The
+        # permutation rides through two packed matrices — 2 wide
+        # row-gathers instead of 11 per-array gathers.
         o, d, alive = st["o"], st["d"], st["alive"]
         span = jnp.maximum(scene.node_hi[0] - scene.node_lo[0], 1e-6)
         q = jnp.clip(
@@ -799,93 +751,22 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
             v = (v | (v << 2)) & jnp.uint32(0x09249249)
             return v
 
-        key_hi = None  # second signature word (tileset with >32 boxes)
-        if cfg.sort_key == "neartile":
-            # nearest-passing-FINE-tile major key: subgroups then share
-            # their first entry-ordered tile, which is exactly when the
-            # while-loop best-t exit fires after ~1 tile. Morton origin
-            # + octant ride as the minor key to keep spatial locality
-            # within equal-tile clusters.
-            from metalpathtracer_tpu.render.pallas.intersect_mm import (
-                _cull_hit_mask,
-            )
-
-            fhit, fent = _cull_hit_mask(
-                o, d, alive.astype(jnp.float32),
-                scene.mm_tile_box, T_MIN,
-            )  # (nt, n)
-            ent = jnp.where(fhit, fent, jnp.inf)
-            near = jnp.argmin(ent, axis=0).astype(jnp.uint32)
-            none = ~jnp.any(fhit, axis=0)
-            nt_ = scene.mm_tile_box.shape[0]
-            shift = max(0, nt_.bit_length() - 10)
-            near = jnp.where(
-                none, jnp.uint32(1023), (near >> shift).astype(jnp.uint32)
-            )
-            morton = (
-                spread3(q[:, 0]) | (spread3(q[:, 1]) << 1)
-                | (spread3(q[:, 2]) << 2)
-            )
-            octant = (
-                (d[:, 0] > 0).astype(jnp.uint32)
-                | ((d[:, 1] > 0).astype(jnp.uint32) << 1)
-                | ((d[:, 2] > 0).astype(jnp.uint32) << 2)
-            )
-            key = (near << 18) | ((morton & jnp.uint32(0x7FFF)) << 3) | octant
-        elif cfg.sort_key == "tileset":
-            # signature key: one slab-test bit per coarse tile-range
-            # AABB (the EXACT quantity the subgroup cull unions — rays
-            # with equal signatures cost their subgroup exactly their
-            # shared tiles). The mask is built bit 0 = coarse range 0
-            # (low Morton tiles), so lexicographic order also groups by
-            # nearest-range first. Past 32 boxes the signature becomes
-            # TWO u32 sort words (key_hi = boxes 32+), ordered by a
-            # two-key lax.sort — an env-switchable experiment
-            # (MPT_COARSE_BOXES): the finer key measured a LOSS on every
-            # scene (device_scene.N_COARSE), so production ships 32.
-            from metalpathtracer_tpu.render.pallas.intersect_mm import (
-                _cull_hit_mask,
-            )
-
-            chit, _ = _cull_hit_mask(
-                o, d, alive.astype(jnp.float32),
-                scene.mm_coarse_box, T_MIN,
-            )  # (nc, n) bool
-            nc = scene.mm_coarse_box.shape[0]
-            nlo = min(nc, 32)
-            bits = jnp.uint32(1) << jnp.arange(nlo, dtype=jnp.uint32)
-            key = jnp.sum(
-                chit[:nlo].astype(jnp.uint32) * bits[:, None], axis=0,
-                dtype=jnp.uint32,
-            )
-            if nc > 32:
-                bits_hi = jnp.uint32(1) << jnp.arange(
-                    nc - 32, dtype=jnp.uint32
-                )
-                key_hi = jnp.sum(
-                    chit[32:].astype(jnp.uint32) * bits_hi[:, None],
-                    axis=0, dtype=jnp.uint32,
-                )
-            # dead lanes and no-tile lanes both map to 0 — they do no
-            # kernel work either way, so sharing a cluster is free
-        else:
-            morton = (
-                spread3(q[:, 0]) | (spread3(q[:, 1]) << 1)
-                | (spread3(q[:, 2]) << 2)
-            )
-            octant = (
-                (d[:, 0] > 0).astype(jnp.uint32)
-                | ((d[:, 1] > 0).astype(jnp.uint32) << 1)
-                | ((d[:, 2] > 0).astype(jnp.uint32) << 2)
-            )
-            # origin-major key: octant-major measured 11.34 vs 12.43
-            # Mrays/s — the slab cull is origin-dominated, so origin
-            # locality is what shrinks subgroup lists
-            key = (
-                jnp.where(alive, jnp.uint32(0), jnp.uint32(1) << 31)
-                | (morton << 3)
-                | octant
-            )
+        morton = (
+            spread3(q[:, 0]) | (spread3(q[:, 1]) << 1)
+            | (spread3(q[:, 2]) << 2)
+        )
+        octant = (
+            (d[:, 0] > 0).astype(jnp.uint32)
+            | ((d[:, 1] > 0).astype(jnp.uint32) << 1)
+            | ((d[:, 2] > 0).astype(jnp.uint32) << 2)
+        )
+        # dead lanes last, then origin-major: origin locality is what
+        # groups lanes that walk the same BVH nodes
+        key = (
+            jnp.where(alive, jnp.uint32(0), jnp.uint32(1) << 31)
+            | (morton << 3)
+            | octant
+        )
         if pend_rgb is not None and scatter_cap:
             # pend-first major bit: lanes holding an unscattered bank sort
             # to the pool front, so the body's fb scatter can cover every
@@ -900,19 +781,8 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
             haspend = pend_idx < jnp.uint32(groups)
             pf = jnp.asarray(pend_first, bool)
             pend_bit = jnp.where(haspend, jnp.uint32(0), jnp.uint32(1) << 31)
-            if key_hi is None:
-                key = jnp.where(pf, (key >> 1) | pend_bit, key)
-            else:  # the bit rides the MOST significant word
-                key_hi = jnp.where(pf, (key_hi >> 1) | pend_bit, key_hi)
-        if key_hi is None:
-            perm = jnp.argsort(key)
-        else:
-            # lexicographic (hi, lo) two-key sort; the carried iota IS the
-            # permutation (CLAUDE.md: two-operand sort over argsort+gather)
-            _, _, perm = jax.lax.sort(
-                (key_hi, key, jnp.arange(key.shape[0], dtype=jnp.int32)),
-                num_keys=2,
-            )
+            key = jnp.where(pf, (key >> 1) | pend_bit, key)
+        perm = jnp.argsort(key)
         ka = 3 * bank_k  # acc / pend_rgb column width
         fparts = [st["o"], st["d"], st["acc"], st["light"], st["tp"],
                   st["prev_pdf"][:, None]]
@@ -944,17 +814,12 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
     # = bank & (new_item < total) goes false and lanes just die), so the
     # feed loop and the first drain stage share ONE compiled program: the
     # cond keeps iterating until live lanes fit the final narrow stage.
-    # Compile-time diet (VERDICT r3 #7): the staged 16x drain shrink held
-    # a separately compiled while-loop (each with the full Pallas kernel +
-    # regen graph) per stage — feed@pool + drain@pool + drain@pool/16 +
-    # drain@min_w = 4 advance graphs at the bench config; merging leaves 2
-    # (this loop at `pool`, the final stage at `min_w`). Full-pool passes
-    # for stragglers between min_w and pool/16 alive lanes are the price —
-    # a handful of advances (a terminated lane can no longer be refilled,
-    # so the 2^14 -> 2^20 collapse in docs/PERFORMANCE.md's pool table
-    # bounds how bad an UNSTAGED tail gets; the narrow final stage still
-    # catches the long solo stragglers).
-    min_w = min(pool, 1024)  # one intersection block; narrower just pads
+    # Compile time: each separately compiled drain stage holds a full
+    # advance graph, so the feed loop and the first drain stage share one
+    # program (at `pool`) and a single narrow final stage (at `min_w`)
+    # catches the long stragglers. Full-pool passes for stragglers between
+    # min_w and pool alive lanes are the price.
+    min_w = min(pool, 1024)
     drain_stop = min_w if pool > min_w else 0
 
     def cond(st):
@@ -970,9 +835,9 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
 
         # One ADVANCE instance traced inside a fori_loop instead of a
         # Python unroll: the unrolled body multiplied the compiled program
-        # by flush_every advance graphs (each holding the full Pallas
-        # kernel + regen machinery), and compile wall-time is a tracked
-        # budget (VERDICT r2 #9). The pending-bank slots ride the loop
+        # by flush_every advance graphs (each holding the full intersector
+        # + regen machinery), and compile wall-time is a tracked budget.
+        # The pending-bank slots ride the loop
         # carry — each lane banks at most once per flush_every window (see
         # the cadence bound above), so `where(bank, ...)` still collects
         # every bank exactly once.
@@ -1015,13 +880,12 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
         # lanes hit their pixel-group row (< groups), everyone else a
         # private OOB index (>= groups) that mode="drop" discards before
         # the write stage — no duplicate-under-unique_indices UB
-        # (VERDICT r3 weak #4) and no dummy-row write traffic (the
-        # round-4 in-bounds variant's 12% regression, round-5 bisect).
+        # (VERDICT r3 weak #4) and no dummy-row write traffic.
         if scatter_cap:
             # The window's final maybe_sort ordered pend-holders first
             # (pend-first major bit), so when <= scatter_cap lanes hold a
-            # real bank the prefix covers them all and the ~40-85 ns/row
-            # scatter tax shrinks by the divisor; rows past the prefix are
+            # real bank the prefix covers them all and the per-row
+            # scatter cost shrinks by the divisor; rows past the prefix are
             # all dropped OOB lanes whose omission changes nothing. The
             # scalar-pred cond is REAL control flow at the XLA level (one
             # branch executes); short-path scenes where every lane banks
@@ -1072,14 +936,9 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
     drain["light"] = jnp.where(dead0[:, None], 0.0, drain["light"])
     drain["acc"] = jnp.where(dead0[:, None], 0.0, drain["acc"])
 
-    # drain-phase sorting: ON whenever feed sorting is on (bunny70k chip:
-    # 5.50 -> 5.67, bunny300k streaming 3.52 -> 3.79 — short-queue configs
-    # spend ~half their advances in the drain, and its unsorted round-2
-    # form decohered subgroup tile lists for exactly that half). The one
-    # measured loser is the adversarial incoherent cloud (~-8%: full
-    # unions by construction, so the sort buys nothing) — coherence, not
-    # residency, is the real dimension, and it isn't statically
-    # detectable; real scenes are coherent. Env override for sweeps.
+    # drain-phase sorting: ON whenever feed sorting is on (short-queue
+    # configs spend about half their advances in the drain). Env override
+    # for sweeps.
     drain_sort = (
         (_ENV_DRAIN_SORT == "1")
         if _ENV_DRAIN_SORT
@@ -1141,7 +1000,6 @@ def trace_wavefront(scene, camera, width, height, spp, seed,
     fb = fb.reshape(n_pix, 3)
     if return_stats:
         return fb, drain["rays"], dict(
-            mxu_tile_passes=drain["mxu_tile_passes"],
             # NEE occlusion probes, included in `rays` but reported apart
             # so config tables can't present shadow-probe throughput as
             # flagship-equivalent Mrays/s (VERDICT r3 weak #8)

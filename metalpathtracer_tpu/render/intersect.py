@@ -1,11 +1,11 @@
 """Ray-primitive intersection, vectorized over dense (ray, primitive) blocks.
 
-TPU-native counterpart of the reference's per-thread intersectors: the inline
+Wavefront counterpart of the reference's per-thread intersectors: the inline
 sphere quadratic and Moller-Trumbore tests inside `firstHitBVH`
 (`MetalCpp Path Tracer/Renderer/Shaders/PathTracing.h:120-176`) and the
 standalone `Intersect.h:10-83` helpers. Instead of one ray testing one
 primitive at a time, every function here evaluates an (N, C) block of
-ray-primitive pairs as dense VPU math; `closest_hit_bruteforce` scans the
+ray-primitive pairs as dense vector math; `closest_hit_bruteforce` scans the
 whole primitive soup in chunks (BASELINE configs 1-2, "flat triangle list"),
 while the BVH path (`render/traverse.py`) gathers 8-wide leaf blocks.
 

@@ -1,6 +1,6 @@
 """Rendering pipeline: ray generation, sample batching, progressive state.
 
-The TPU equivalent of the reference's per-frame host loop
+The JAX equivalent of the reference's per-frame host loop
 (`Renderer::draw`, `MetalCpp Path Tracer/Renderer/Renderer.cpp:269-310`) and
 the fragment shader's primary-ray + progressive-average logic
 (`Renderer/Shaders/Fragment.metal:29-69`). One "frame" of the reference (one
@@ -156,11 +156,11 @@ def render_image_wavefront(
 
     With `return_stats` a third dict is returned (integrator telemetry:
     `shadow_rays` — NEE occlusion probes included in rays_traced, reported
-    apart so throughput tables can label them; `mxu_tile_passes`)."""
+    apart so throughput tables can label them)."""
     if spp <= 0:
         raise ValueError(f"spp must be positive, got {spp}")
     if pool_size is None:
-        pool_size = min(width * height * spp, 1 << 15)  # 2^15 swept optimal (chip: 2^14/15/16 -> 30.1/32.1/27.0 Mrays/s at bpi 1)
+        pool_size = min(width * height * spp, 1 << 15)
     rgb_sum, rays, stats = _render_wavefront_jit(
         scene, camera, width, height, spp, rng.seed_from_int(seed), cfg,
         int(pool_size),

@@ -1,7 +1,8 @@
 """Wavefront BVH traversal inside `jax.lax.while_loop`.
 
-TPU-native counterpart of the reference's per-thread stack traversal
-(`firstHitBVH`, `MetalCpp Path Tracer/Renderer/Shaders/PathTracing.h:75-204`):
+Plain-JAX counterpart of the reference's per-thread stack traversal
+(`firstHitBVH`, `MetalCpp Path Tracer/Renderer/Shaders/PathTracing.h:75-204`),
+and the plain reference of the CUDA walk in `render/hit_cuda.py`:
 
 - Every ray in the wavefront carries its own fixed-size stack as a row of an
   (N, S) int32 array; all rays step in lockstep (one node pop per ray per
@@ -14,7 +15,8 @@ TPU-native counterpart of the reference's per-thread stack traversal
 - The AABB test prunes against each ray's current best t, exactly like the
   reference passing `in.t` as tMax (`PathTracing.h:100`).
 - The loop exits when every ray's stack is empty — a global early-exit the
-  megakernel gets per-thread but a TPU wavefront must take collectively.
+  megakernel gets per-thread but a lockstep wavefront must take
+  collectively.
 """
 
 from __future__ import annotations
@@ -31,11 +33,13 @@ from metalpathtracer_tpu.render.intersect import (
 )
 
 
-def closest_hit_bvh(scene, o, d, t_min=T_MIN):
+def closest_hit_bvh(scene, o, d, t_min=T_MIN, active=None, t_max=None):
     """Closest hit via BVH traversal.
 
-    Args: `scene` DeviceScene, `o`/`d` float32 (N, 3). Returns
-    (t, prim_idx): float32 (N,), int32 (N,) with -1 on miss.
+    Args: `scene` DeviceScene, `o`/`d` float32 (N, 3); optional `active`
+    (N,) bool (masked rays walk nothing) and `t_max` (N,) float32 (hits
+    must be nearer, the reference's `in.t` tMax). Returns (t, prim_idx):
+    float32 (N,), int32 (N,) with (inf, -1) on a miss or an inactive ray.
     """
     n = o.shape[0]
     stack_size = int(scene.max_depth) + 2
@@ -43,8 +47,10 @@ def closest_hit_bvh(scene, o, d, t_min=T_MIN):
     inv_d = 1.0 / d  # inf on zero components is fine, like the reference
 
     stack = jnp.zeros((n, stack_size), jnp.int32)  # slot 0 preloaded with root 0
-    sp = jnp.ones((n,), jnp.int32)
-    best_t = jnp.full((n,), INF)
+    sp = (jnp.ones((n,), jnp.int32) if active is None
+          else active.astype(jnp.int32))
+    best_t = (jnp.full((n,), INF) if t_max is None
+              else t_max.astype(jnp.float32))
     best_i = jnp.full((n,), -1, jnp.int32)
     leaf_arange = jnp.arange(LEAF_SIZE, dtype=jnp.int32)[None, :]
 
@@ -103,4 +109,4 @@ def closest_hit_bvh(scene, o, d, t_min=T_MIN):
     _, _, best_t, best_i = jax.lax.while_loop(
         cond, body, (stack, sp, best_t, best_i)
     )
-    return best_t, best_i
+    return jnp.where(best_i >= 0, best_t, INF), best_i

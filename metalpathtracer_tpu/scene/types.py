@@ -3,9 +3,9 @@
 The reference stores a unified sphere/triangle "primitive soup" as an
 array-of-structs (`MetalCpp Path Tracer/Scene/Scene.h:17-23`: tagged union of
 type + data0..2 + Material) and serializes it to GPU float4 arrays
-(`Scene/Scene.h:99-118`). The TPU-native layout is structure-of-arrays:
+(`Scene/Scene.h:99-118`). The layout here is structure-of-arrays:
 separate typed `(P,)`/`(P, 3)` arrays, padded to a lane multiple, so every
-field maps directly onto 8x128 VPU registers with no swizzling.
+field is one dense array with no swizzling.
 
 Material conventions preserved from the reference
 (`Scene/Material.h:8-14`, `Renderer/Shaders/Scatter.h:22-43`,

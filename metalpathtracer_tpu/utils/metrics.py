@@ -4,7 +4,7 @@ The reference's only observability is printf (SURVEY.md §5: scene stats at
 `Renderer.cpp:118-124`, viewport dumps). Here renders report structured
 stats (rays, Mrays/sec, spp/sec), image error is quantified (RMSE — the
 BASELINE fidelity gate is RMSE < 1e-3 vs a converged reference), and
-`jax.profiler` traces can wrap any render for per-op TPU timing.
+`jax.profiler` traces can wrap any render for per-op device timing.
 """
 
 from __future__ import annotations
@@ -110,25 +110,31 @@ def timed_render(fn, *args, repeats: int = 1, **kwargs):
     return (img, rays), RenderStats(w, h, spp, best, int(rays))
 
 
-def enable_persistent_compile_cache() -> None:
-    """Engage JAX's persistent compilation cache for this process.
+# the checkout's own cache directory (listed in .gitignore); a fixed path,
+# because the path is part of the cache key
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
-    On this backend the JAX_COMPILATION_CACHE_DIR env var alone never
-    engages the cache — only an explicit config.update does (verified:
-    entries appear only after the update; docs/PERFORMANCE.md). Without
-    it every fresh viewer/CLI process pays the full remote XLA compile
-    (~minutes for the wavefront program). Call before the first jit.
-    The env var still overrides the default location.
+
+def enable_persistent_compile_cache() -> str | None:
+    """Engage JAX's persistent compilation cache for this process: in
+    `JAX_COMPILATION_CACHE_DIR` when that is set, else in the checkout's
+    `.jax_cache/`. Call before the first jit. Returns the directory, or
+    None (with a warning on stderr) when the cache could not be engaged.
     """
+    import sys
+
     import jax
 
-    path = os.environ.get(
-        "JAX_COMPILATION_CACHE_DIR",
-        os.path.expanduser("~/.cache/jax_tpu_cache"),
-    )
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_CACHE_DIR
     try:
         os.makedirs(path, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", path)
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-    except Exception:
-        pass  # older jax or read-only FS: run without the cache
+    except Exception as e:  # read-only FS or a JAX without the option
+        print(f"warning: persistent compile cache not engaged at {path}: "
+              f"{e!r}", file=sys.stderr)
+        return None
+    return path

@@ -1,17 +1,21 @@
-"""The MXU matmul intersector must agree with the oracle intersectors.
+"""The production closest-hit route must agree with the brute-force oracle.
 
-Runs in Pallas interpret mode on CPU (the same kernel compiles for TPU).
+`integrator.closest_hit` with intersector="auto" is the route the renderer
+takes: the CUDA BVH walk on a GPU, the plain-JAX traversal
+(`traverse.closest_hit_bvh`) here on the CPU. (The module and test names
+date from the matmul intersector this route replaced.)
 """
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from metalpathtracer_tpu.render import Camera, RenderConfig, render_image, upload_scene
+from metalpathtracer_tpu.render.integrator import closest_hit, resolve_intersector
 from metalpathtracer_tpu.render.intersect import closest_hit_bruteforce
-from metalpathtracer_tpu.render.pallas.intersect_mm import closest_hit_mm
 from metalpathtracer_tpu.scene import HostScene, Material, load_scene_xml, presets
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -31,20 +35,18 @@ def test_mm_matches_bruteforce_bunny(n):
     scene = upload_scene(load_scene_xml(os.path.join(REPO, "scenes", "reference.xml")))
     o, d = random_rays(n, seed=n)
     t0, i0 = closest_hit_bruteforce(scene, o, d)
-    t1, i1 = closest_hit_mm(scene, o, d)
+    t1, i1 = closest_hit(scene, o, d)
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i0))
     f = np.isfinite(np.asarray(t0))
     assert f.sum() > n // 10
-    # refinement recomputes t with the oracle formula; residual diffs are
-    # f32 FMA-contraction rounding on the giant ground sphere's quadratic
     np.testing.assert_allclose(
         np.asarray(t1)[f], np.asarray(t0)[f], rtol=5e-4, atol=1e-2
     )
 
 
 def test_mm_giant_sphere_precision():
-    # r=10000 ground sphere: |c|^2 ~ 1e8 would swamp f32 in the raw matmul
-    # form; the refinement pass must restore exact t.
+    # r=10000 ground sphere: |c|^2 ~ 1e8 is where f32 cancellation bites;
+    # the route must keep the oracle's t and its far-root floor
     s = HostScene()
     s.add_sphere((0, -10000, 0), 10000.0, Material())
     scene = upload_scene(s)
@@ -53,7 +55,7 @@ def test_mm_giant_sphere_precision():
         np.array([[0, -1, 0], [0.6, -0.8, 0], [0, -0.7071, 0.7071], [1, 0, 0]],
                  np.float32)
     )
-    t, idx = closest_hit_mm(scene, o, d)
+    t, idx = closest_hit(scene, o, d)
     t = np.asarray(t)
     np.testing.assert_allclose(t[0], 5.0, atol=1e-3)
     assert int(idx[3]) == -1  # horizontal ray misses
@@ -63,39 +65,36 @@ def test_mm_giant_sphere_precision():
 
 
 def test_mm_in_integrator_matches_brute_render():
-    scene = upload_scene(presets.cornell_spheres())
+    scene = upload_scene(presets.cornell_mesh(subdivisions=1))
     cam = Camera.look_at((0, 2.5, 9.0), (0, 2.5, 0), vfov_deg=40.0)
     a, _ = render_image(scene, cam, 24, 24, spp=2, seed=5,
                         cfg=RenderConfig(max_depth=6, intersector="brute"))
     b, _ = render_image(scene, cam, 24, 24, spp=2, seed=5,
-                        cfg=RenderConfig(max_depth=6, intersector="mm"))
+                        cfg=RenderConfig(max_depth=6, intersector="auto"))
     a, b = np.asarray(a), np.asarray(b)
-    # same estimator + same RNG streams; a handful of pixels diverge where
-    # fp tie-breaks at grazing hits send the path down a different (equally
-    # valid) bounce chain — bound the divergent fraction, not the max
+    # same estimator + same RNG streams; a handful of pixels may diverge
+    # where fp tie-breaks at grazing hits send the path down a different
+    # (equally valid) bounce chain — bound the divergent fraction
     diff = np.abs(a - b)
     assert (diff > 1e-3).mean() < 0.02
     assert abs(a.mean() - b.mean()) < 5e-3
 
 
 def test_auto_always_selects_mm():
-    # "auto" routes every scene to the matmul intersector; the jnp BVH
-    # traversal is explicit-opt-in only (ADVICE r2 / VERDICT r2 weak #6)
-    from metalpathtracer_tpu.render import integrator
+    # "auto" is the plain-JAX traversal on this backend; the matmul route
+    # is gone and its name is refused
+    assert jax.default_backend() == "cpu"
+    assert resolve_intersector("auto", jax.default_backend()) == "bvh"
+    with pytest.raises(ValueError, match="unknown intersector"):
+        resolve_intersector("mm", "cpu")
+    with pytest.raises(ValueError, match="unknown intersector"):
+        closest_hit(None, jnp.zeros((1, 3)), jnp.ones((1, 3)), "mm")
 
-    assert not hasattr(integrator, "MM_MAX_PRIMS")
 
-
-def test_mm_streaming_large_mesh(monkeypatch):
-    # Force the HBM-streaming kernel (batched union-DMA slot cache) by
-    # lowering the residency cap below this scene — the production cap now
-    # admits ~128k tris resident, so a test-sized mesh must opt in; the
-    # streaming kernel must agree with brute force exactly on hit ids.
-    from metalpathtracer_tpu.render.pallas import intersect_mm
-    from metalpathtracer_tpu.scene import HostScene, Material
+def test_mm_streaming_large_mesh():
+    # two 20,480-tri icospheres: a mesh far past what the old matmul
+    # kernel held resident; the walk must agree with brute force on ids
     from metalpathtracer_tpu.scene.procgen import icosphere
-
-    monkeypatch.setattr(intersect_mm, "VMEM_RESIDENT_MAX_TRIS", 16 * 1024)
 
     v, f = icosphere(5, radius=2.0)  # 20480 tris
     s = HostScene()
@@ -103,7 +102,7 @@ def test_mm_streaming_large_mesh(monkeypatch):
     s.add_mesh(v, f, position=(4, 0, -8), scale=0.8,
                material=Material(albedo=(0.9, 0.2, 0.2)))
     scene = upload_scene(s)
-    assert scene.num_tris > intersect_mm.VMEM_RESIDENT_MAX_TRIS  # streams
+    assert scene.num_tris == 2 * 20480
 
     # rays aimed at the first mesh from a small origin cloud
     r = np.random.default_rng(11)
@@ -117,177 +116,10 @@ def test_mm_streaming_large_mesh(monkeypatch):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o, d = jnp.asarray(o), jnp.asarray(d)
     t0, i0 = closest_hit_bruteforce(scene, o, d)
-    t1, i1 = closest_hit_mm(scene, o, d)
+    t1, i1 = closest_hit(scene, o, d)
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i0))
     hit = np.asarray(i0) >= 0
     assert hit.sum() > 50
     np.testing.assert_allclose(
         np.asarray(t1)[hit], np.asarray(t0)[hit], rtol=5e-4, atol=1e-2
     )
-
-
-def test_b3_hi_lo_split_precision():
-    """The bf16 hi/lo 3-pass scheme (_det_matmul's "b3" mode) must carry
-    ~2^-16 relative error on determinant-scale magnitudes — orders of
-    magnitude tighter than a single bf16 pass (which corrupted on-chip
-    intersections; docs/PERFORMANCE.md round-2 precision bug)."""
-    import ml_dtypes
-
-    rng_ = np.random.default_rng(7)
-    # feature-scale magnitudes: |o|^2 ~ 3e3 alongside O(1) direction terms
-    x = (rng_.standard_normal((64, 16)) * np.array(
-        [1, 1, 1, 50, 50, 50, 50, 50, 50, 50, 3000, 1, 0, 0, 0, 0]
-    )).astype(np.float32)
-    w = (rng_.standard_normal((16, 128)) * 0.5).astype(np.float32)
-
-    exact = x.astype(np.float64) @ w.astype(np.float64)
-    scale = np.abs(x.astype(np.float64))[..., None] * np.abs(
-        w.astype(np.float64)
-    )[None]
-    bound = scale.sum(axis=1)  # sum_k |x_k||w_k| per output element
-
-    bf = ml_dtypes.bfloat16
-    xh = x.astype(bf)
-    xl = (x - xh.astype(np.float32)).astype(bf)
-    wh = w.astype(bf)
-    wl = (w - wh.astype(np.float32)).astype(bf)
-    b3 = (
-        xh.astype(np.float32) @ wh.astype(np.float32)
-        + xh.astype(np.float32) @ wl.astype(np.float32)
-        + xl.astype(np.float32) @ wh.astype(np.float32)
-    )
-    b1 = xh.astype(np.float32) @ wh.astype(np.float32)
-
-    err3 = np.abs(b3 - exact) / bound
-    err1 = np.abs(b1 - exact) / bound
-    assert err3.max() < 2.0**-14, err3.max()
-    assert err1.max() > 2.0**-11  # single-pass bf16 really is that coarse
-    assert err3.max() < err1.max() / 30
-
-
-def test_regroup_dest_aligns_runs():
-    """_regroup_dest must (a) keep source order within a run, (b) start
-    every run at a 128-lane boundary when it fits the cap, (c) fall back
-    to identity when even coarsened runs overflow."""
-    from metalpathtracer_tpu.render.pallas.intersect_mm import _regroup_dest
-
-    # three runs: 200 + 60 + 100 lanes -> aligned starts 0, 256, 384
-    key = jnp.asarray(
-        np.repeat(np.array([5, 9, 12], np.uint32), [200, 60, 100])
-    )
-    dest = np.asarray(_regroup_dest(key, 1024))
-    assert dest[0] == 0 and dest[199] == 199
-    assert dest[200] == 256 and dest[259] == 315
-    assert dest[260] == 384 and dest[359] == 483
-    assert len(np.unique(dest)) == len(dest)  # injective
-
-    # every lane its own signature, spread so no coarsening level merges
-    # them: 360 runs x 128 lanes >> cap -> identity fallback
-    key2 = jnp.asarray((np.arange(360, dtype=np.uint32) << 16))
-    dest2 = np.asarray(_regroup_dest(key2, 512))
-    np.testing.assert_array_equal(dest2, np.arange(360))
-
-
-def test_regroup_matches_bruteforce_sorted_rays():
-    """Signature-homogeneous regrouping engaged (width >= 2*BLOCK_R,
-    rays pre-sorted by their coarse signature so real runs exist) must
-    leave closest-hit results identical to the oracle: a lane's subgroup
-    union always contains the lane's own passing tiles, whatever the
-    grouping."""
-    from metalpathtracer_tpu.render.pallas import intersect_mm
-    from metalpathtracer_tpu.render.pallas.intersect_mm import (
-        BLOCK_R,
-        T_MIN,
-        ray_features,
-        _signature_key,
-    )
-
-    # regroup is OPT-IN (measured loss on chip, see the module comment) —
-    # force it here so the invariance contract stays pinned for the
-    # experiment surface
-    intersect_mm.REGROUP = True
-    intersect_mm._tri_hit_mm_padded.clear_cache()
-    scene = upload_scene(
-        load_scene_xml(os.path.join(REPO, "scenes", "reference.xml"))
-    )
-    n = 2 * BLOCK_R
-    o, d = random_rays(n, seed=42, origin_span=8.0, center=(0, 2, 6))
-    key = np.asarray(_signature_key(
-        ray_features(o, d), jnp.ones((n,), jnp.float32), jnp.full((n,), jnp.inf),
-        scene.mm_coarse_box, T_MIN,
-    ))
-    order = np.argsort(key, kind="stable")
-    assert len(np.unique(key)) < n // 4  # real runs exist at this geometry
-    o, d = o[order], d[order]
-    t0, i0 = closest_hit_bruteforce(scene, o, d)
-    t1, i1 = closest_hit_mm(scene, o, d)
-    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i0))
-    f = np.isfinite(np.asarray(t0))
-    assert f.sum() > n // 4
-    # rtol 2e-3: two grazing ground-sphere hits carry the documented
-    # mm-vs-brute FMA-contraction residual (present regroup on OR off)
-    np.testing.assert_allclose(
-        np.asarray(t1)[f], np.asarray(t0)[f], rtol=2e-3, atol=1e-2
-    )
-    # regrouping must be RESULT-INVARIANT, bit for bit: same per-lane
-    # winners whatever the subgroup placement
-    try:
-        intersect_mm.REGROUP = False
-        intersect_mm._tri_hit_mm_padded.clear_cache()
-        t2, i2 = closest_hit_mm(scene, o, d)
-    finally:
-        intersect_mm.REGROUP = False  # restore the shipped default
-        intersect_mm._tri_hit_mm_padded.clear_cache()
-        intersect_mm._tri_hit_mm_padded.clear_cache()
-    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
-    np.testing.assert_array_equal(np.asarray(t1), np.asarray(t2))
-
-
-def test_cull_pass_matches_xla_reference(monkeypatch):
-    """The fused Pallas cull kernel must reproduce the XLA slab-test
-    formulation it replaced: subgroup union mask, subgroup-min entry, and
-    per-lane bound (generic rays — no zero direction components, where the
-    kernel's clamped-reciprocal handling is deliberately tighter).
-    CULL_KERNEL_MIN_TILES is pinned to 0 so the KERNEL route runs even at
-    the reference scene's small tile count (production routes it to the
-    XLA path, which is the oracle here)."""
-    from metalpathtracer_tpu.render.pallas import intersect_mm
-    from metalpathtracer_tpu.render.pallas.intersect_mm import (
-        BLOCK_R,
-        T_MIN,
-        _cull_hit_mask,
-        _cull_pass,
-        ray_features,
-    )
-
-    monkeypatch.setattr(intersect_mm, "CULL_KERNEL_MIN_TILES", 0)
-
-    scene = upload_scene(
-        load_scene_xml(os.path.join(REPO, "scenes", "reference.xml"))
-    )
-    n = 2 * BLOCK_R
-    o, d = random_rays(n, seed=7)
-    x = ray_features(o, d)
-    rng = np.random.default_rng(3)
-    active = jnp.asarray((rng.uniform(size=n) > 0.25).astype(np.float32))
-    occ = jnp.asarray(
-        np.where(rng.uniform(size=n) > 0.5, rng.uniform(1.0, 200.0, n),
-                 np.inf).astype(np.float32)
-    )
-    tile_box = scene.mm_tile_box
-    nt = tile_box.shape[0]
-
-    sgm, gent, lane_bound = _cull_pass(
-        x, active, tile_box, T_MIN, occ, interpret=True
-    )
-    hit, enter = _cull_hit_mask(o, d, active, tile_box, T_MIN, occ)
-    hit = np.asarray(hit)
-    enter = np.asarray(enter)
-    ent = np.where(hit, enter, np.inf)  # (nt, n)
-    sgm_ref = hit.reshape(nt, n // 128, 128).any(axis=2).T
-    gent_ref = ent.reshape(nt, n // 128, 128).min(axis=2).T
-    lb_ref = np.where(hit, enter, -np.inf).max(axis=0)
-
-    np.testing.assert_array_equal(np.asarray(sgm), sgm_ref)
-    np.testing.assert_array_equal(np.asarray(gent), gent_ref)
-    np.testing.assert_array_equal(np.asarray(lane_bound), lb_ref)

@@ -1,4 +1,4 @@
-"""Extra multi-chip coverage: streaming scenes, checkpoint interplay,
+"""Extra multi-device coverage: larger meshes, checkpoint interplay,
 and NEE/RR configurations under the virtual 8-device mesh."""
 
 import jax.numpy as jnp
@@ -22,7 +22,7 @@ CAM = Camera.look_at((0, 2.5, 9.0), (0, 2.5, 0), vfov_deg=40.0)
 
 
 def test_sharded_render_with_mesh_scene():
-    # triangles exercise the mm kernel (interpret mode) under shard_map
+    # triangles exercise the production closest-hit route under shard_map
     s = presets.cornell_spheres()
     v, f = icosphere(1, radius=0.7)
     s.add_mesh(v, f, position=(0, 1.0, 0.3), scale=1.0,
@@ -59,9 +59,8 @@ def test_accumulate_then_shard_consistency():
 
 
 def test_wavefront_sharded_mesh_scene_bit_identical():
-    # the flagship wavefront route with num_tris > 0: the mm pallas_call
-    # (and its lane-sorting permutation) runs UNDER shard_map — the
-    # interaction VERDICT r2 flagged as uncovered (weak #7)
+    # the flagship wavefront route with num_tris > 0: the closest-hit
+    # route (and its lane-sorting permutation) runs UNDER shard_map
     from metalpathtracer_tpu.parallel import render_image_wavefront_sharded
     from metalpathtracer_tpu.render import render_image_wavefront
 
@@ -134,24 +133,20 @@ def test_wavefront_2d_mesh_bit_identical():
     assert r == rb
 
 
-def test_wavefront_sharded_streaming_kernel(monkeypatch):
-    # The HBM-streaming kernel (union DMA + VMEM slot cache + scratch)
-    # UNDER shard_map — the combination VERDICT r3 weak #6 flagged as
-    # never executed anywhere. Forced by lowering the residency cap below
-    # the scene's triangle count, as test_intersect_mm does single-device.
+def test_wavefront_sharded_streaming_kernel():
+    # A denser mesh (a deeper BVH walk per ray) through the production
+    # route UNDER shard_map on a 2-device mesh. (The name dates from an
+    # HBM-streaming kernel, which this scene used to force.)
     from metalpathtracer_tpu.parallel import render_image_wavefront_sharded
     from metalpathtracer_tpu.render import render_image_wavefront
-    from metalpathtracer_tpu.render.pallas import intersect_mm
     from metalpathtracer_tpu.scene.procgen import icosphere
 
-    monkeypatch.setattr(intersect_mm, "VMEM_RESIDENT_MAX_TRIS", 1024)
-
     s = presets.cornell_spheres()
-    v, f = icosphere(3, radius=0.8)  # 1280 tris > the lowered cap
+    v, f = icosphere(3, radius=0.8)  # 1280 tris
     s.add_mesh(v, f, position=(0, 1.2, 0.0), scale=1.0,
                material=Material(albedo=(0.8, 0.7, 0.2)))
     scene = upload_scene(s)
-    assert scene.num_tris > intersect_mm.VMEM_RESIDENT_MAX_TRIS  # streams
+    assert scene.num_tris == 1280
 
     cfg = RenderConfig(max_depth=3)
     base, rb = render_image_wavefront(scene, CAM, 16, 16, spp=2, seed=5,

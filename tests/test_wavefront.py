@@ -91,7 +91,7 @@ def test_wavefront_bank_k_scatter_cap_matches_scan():
     groups >= pool."""
     scene = upload_scene(presets.reference_default())
     cam = Camera.reset()
-    cfg = RenderConfig(max_depth=6, bank_k=2)
+    cfg = RenderConfig(max_depth=6, bank_k=2, sort_lanes=True)
     # n_pix = 64*36 = 2304, pool 128: groups = 1152 >= pool, spb = spp = 4,
     # per_item = 8 -> cut cycles [1, 7]
     a, ra = render_image(scene, cam, 64, 36, spp=4, seed=7, cfg=cfg)
@@ -163,22 +163,16 @@ def test_accumulate_wavefront_matches_scan_accumulate():
     )
 
 
-def test_wavefront_two_word_sort_key_matches_scan(monkeypatch):
-    """The >32-coarse-box tileset key (two u32 sort words, lexicographic
-    two-key lax.sort, pend-first bit on the most-significant word —
-    integrator.maybe_sort) must leave the estimate untouched: RNG streams
-    are positional, so the sort permutation cannot matter. 8192 tris ->
-    64 tiles at TILE_P 128, so 48 coarse boxes survive the n_coarse <=
-    n_tiles clamp and key_hi is real. (Shipped default is 32 boxes — the
-    finer key measured a perf LOSS on chip, docs/PERFORMANCE.md round 5 —
-    but the machinery stays env-switchable and must stay correct.)"""
-    from metalpathtracer_tpu.render import device_scene
-
-    monkeypatch.setattr(device_scene, "N_COARSE", 48)
+def test_wavefront_two_word_sort_key_matches_scan():
+    """The lane sort (Morton origin + octant key, pend-first bit in the
+    window-final sort — integrator.maybe_sort) must leave the estimate
+    untouched on a dense triangle scene: RNG streams are positional, so
+    the sort permutation cannot matter. (The name dates from a two-word
+    sort key that was removed with the matmul intersector.)"""
     scene = upload_scene(presets.random_tri_cloud(8192, seed=3))
-    assert scene.mm_coarse_box.shape[0] == 48
+    assert scene.num_tris == 8192
     cam = Camera.look_at((0, 0, 28.0), (0, 0, 0), vfov_deg=45.0)
-    cfg = RenderConfig(max_depth=4)
+    cfg = RenderConfig(max_depth=4, sort_lanes=True)
     a, ra = render_image(scene, cam, 16, 16, spp=2, seed=13, cfg=cfg)
     b, rb = render_image_wavefront(
         scene, cam, 16, 16, spp=2, seed=13, cfg=cfg, pool_size=256
